@@ -9,16 +9,7 @@ dopamine-modulating the recurrent weights (R-STDP).
 Unlike the reference's per-step host loop, `JitEnvironment` compiles the
 WHOLE episode — reward computation, R-STDP agent update, state update, cue
 encoding — into one `lax.scan` device program (the host-loop `Environment`
-pays a device dispatch per step: ~90 ms over a remote TPU link).
-
-On TPU there is a further tier: with a stencil-connected agent, f32-scalar
-env state, and SHAPE-POLYMORPHIC callbacks (same numbers on flat (N,) and
-(R, C) fields — e.g. masks from `broadcasted_iota`, not flat `.at[:6]`),
-the loop fuses INTO K=16-step Mosaic kernel launches (~3.5 µs/step vs
-~10 µs for the XLA scan at 10×10).  This example keeps the more general
-form — dense connectivity and a PRNGKey env leaf — which stays on the
-`lax.scan` tier; see `tests/test_interactable.py::
-test_jit_environment_env_fused_whole_loop` for the fused-tier contract.
+pays a device dispatch per step).
 
 Run: python examples/agent_environment.py
 """
@@ -31,8 +22,8 @@ sys.path.insert(0, __file__.rsplit("/", 2)[0])
 import jax
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.interactable import JitEnvironment
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.interactable import JitEnvironment
 
 TARGET_RATE = 0.08      # fraction of neurons spiking per step
 

@@ -12,7 +12,7 @@ and summarized (pass ``csv_path``/``weights_path`` to write the files)."""
 import numpy as np
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 
 def main(iterations=10000, csv_path=None, weights_path=None, seed=0):

@@ -4,9 +4,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.core.history import EEGHistory
-from spiking_neural_networks_tpu.analysis import eeg
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.core.history import EEGHistory
+from spiking_neural_networks_jax.analysis import eeg
 
 
 def main():

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-from spiking_neural_networks_tpu import attractors
+from spiking_neural_networks_jax import attractors
 
 
 def main():

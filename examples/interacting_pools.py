@@ -10,8 +10,8 @@ traces to CSVs; here they are summarized (pass ``csv_prefix`` to write
 import numpy as np
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.core.history import AverageVoltageHistory
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.core.history import AverageVoltageHistory
 
 
 def main(iterations=5000, csv_prefix=None, seed=0):

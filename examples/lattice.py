@@ -8,7 +8,7 @@ import sys
 import numpy as np
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "experiments"))

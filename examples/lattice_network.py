@@ -4,7 +4,7 @@ neuron/mod.rs:1464-1536)."""
 
 import numpy as np
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 
 def one_to_one(x, y):

@@ -15,8 +15,8 @@ branches on the integer clock; see `examples/agent_environment.py` /
 import numpy as np
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.interactable import Environment
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.interactable import Environment
 
 
 def main(iterations=10000, period=2000, seed=0):

@@ -22,8 +22,8 @@ if os.environ.get("JAX_PLATFORMS") == "cpu":
     jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.parallel import make_pipeline_mesh
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.parallel import make_pipeline_mesh
 
 
 def build_chain(stages=4, rows=32, cols=32):

@@ -13,8 +13,8 @@ import sys
 import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
-import spiking_neural_networks_tpu.lixirnet as ln
-from spiking_neural_networks_tpu.analysis.peaks import find_peaks_above_threshold
+import spiking_neural_networks_jax.lixirnet as ln
+from spiking_neural_networks_jax.analysis.peaks import find_peaks_above_threshold
 
 N = 5
 ITERATIONS = 2000

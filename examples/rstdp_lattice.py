@@ -5,7 +5,7 @@ through dopamine-modulated eligibility traces."""
 import numpy as np
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 
 def main():

@@ -3,7 +3,7 @@
 
 import numpy as np
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 
 def main():

@@ -25,7 +25,7 @@ from pipeline_setup import (
                             get_spike_train_setup_function,
                             find_peaks_above_threshold)
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 
 def run_trial(w, w_ie, patterns, pattern_index, exc_n, inh_n, rng,

@@ -28,7 +28,7 @@ from pipeline_setup import (
                             get_spike_train_setup_function,
                             find_peaks_above_threshold, determine_accuracy)
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 DEFAULTS = {
     "simulation_parameters": dict(

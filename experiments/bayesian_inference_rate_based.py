@@ -38,7 +38,7 @@ from pipeline_setup import (
     get_noisy_rate_spike_train_setup_function,
     find_peaks_above_threshold, determine_accuracy, signal_to_noise)
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 # lattice ids inside one network (bayesian_inference_pipeline_rate_based
 # .py:230-239)

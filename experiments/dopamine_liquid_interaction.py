@@ -24,7 +24,7 @@ from pipeline_setup import output_path, signal_to_noise
 from lsm_setup import (generate_liquid_weights, generate_start_firing,
                        stop_firing, determine_return_to_baseline)
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 
 def run_condition(s_d1, s_d2, rows=8, cols=8, off_phase=5000, on_phase=1000,

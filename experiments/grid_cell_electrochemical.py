@@ -25,7 +25,7 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from pipeline_setup import output_path
 from grid_cell_model import toroidal_dist
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 N = 16
 GRID, GRID_INH, SETTERS = 0, 1, 2

@@ -15,7 +15,7 @@ import sys
 import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 N = 60
 

@@ -27,7 +27,7 @@ import numpy as np
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from pipeline_setup import output_path, find_peaks_above_threshold
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 N = 60
 

@@ -28,7 +28,7 @@ from pipeline_setup import output_path, find_peaks_above_threshold
 from hd_electrochemical_model_dopaminergic import (center_of_mass_ring,
                                                    ring_distance)
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 N = 60
 HD, HD_INH, CUE = 0, 1, 2

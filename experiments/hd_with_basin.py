@@ -31,7 +31,7 @@ from hd_electrochemical_model_no_turning import (N, HD, HD_INH, CUE,
                                                  hd_weight,
                                                  distance_scaled_inhibition)
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 DOPA = 3
 BACKGROUND = 4

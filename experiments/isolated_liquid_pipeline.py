@@ -30,7 +30,7 @@ from pipeline_setup import (output_path, parse_toml, generate_key_helper,
 from lsm_setup import (generate_liquid_weights, generate_start_firing,
                        stop_firing, determine_return_to_baseline)
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 SIM_DEFAULTS = dict(
     exc_only=True, on_phase=1000, off_phase=5000, settling_period=1000,

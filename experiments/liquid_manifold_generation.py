@@ -26,8 +26,8 @@ from pipeline_setup import output_path, signal_to_noise
 
 import jax
 import jax.numpy as jnp
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.ops.graph import DenseGraph
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.ops.graph import DenseGraph
 
 
 def build_liquid(rows=10, cols=10, seed=42, input_region=None):
@@ -165,7 +165,7 @@ def _run_custom_point(sp, cs, rng):
                                 find_peaks_above_threshold)
     from lsm_setup import (build_dopa_liquid_network, generate_liquid_weights,
                            stop_firing, determine_return_to_baseline)
-    import spiking_neural_networks_tpu.lixirnet as ln  # noqa: F401
+    import spiking_neural_networks_jax.lixirnet as ln  # noqa: F401
 
     exc_n, inh_n = sp["exc_n"], sp["inh_n"]
     w = generate_liquid_weights(exc_n * exc_n,

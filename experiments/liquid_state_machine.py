@@ -19,7 +19,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 
 def liquid_state(net, liquid, iterations, tau=20.0):
@@ -46,7 +46,7 @@ def build(seed, pattern, rows=10, cols=10, rate_hz=80.0, liquid_seed=42):
     np.fill_diagonal(mask, False)
     w = rng.uniform(0.5, 1.5, (n, n)) * np.where(
         rng.random((n, n)) < 0.2, -1.0, 1.0)
-    from spiking_neural_networks_tpu.ops.graph import DenseGraph
+    from spiking_neural_networks_jax.ops.graph import DenseGraph
     import jax.numpy as jnp
     liquid.graph = DenseGraph(jnp.asarray(np.where(mask, w, 0.0), jnp.float32),
                               jnp.asarray(mask))

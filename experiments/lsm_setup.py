@@ -73,7 +73,7 @@ def build_dopa_liquid_network(sp, cs, w, rng, w_inh=None, setup_neuron=None):
     swapped gmax pair (ampa_g <- nmda_g and vice versa) — replicated
     faithfully, as in dopamine_liquid_interaction._run_grid_point.
     """
-    import spiking_neural_networks_tpu.lixirnet as ln
+    import spiking_neural_networks_jax.lixirnet as ln
 
     exc_n, inh_n = sp["exc_n"], sp["inh_n"]
     e1, i1, c1 = 0, 1, 2

@@ -33,7 +33,7 @@ from pipeline_setup import (
     skewed_random, find_peaks_above_threshold, determine_accuracy,
     signal_to_noise)
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 I1, E1, C1 = 0, 1, 2
 

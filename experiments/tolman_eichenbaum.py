@@ -34,7 +34,7 @@ import numpy as np
 sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from pipeline_setup import output_path
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 RING, READOUT, CUE, TEACHER = 0, 1, 2, 3
 
@@ -44,7 +44,7 @@ def ring_distance(length, i, j):
 
 
 def build(n_pos, n_obj, rng, stdp_a=0.2):
-    from spiking_neural_networks_tpu.core.history import SpikeHistory
+    from spiking_neural_networks_jax.core.history import SpikeHistory
 
     def setup_neuron(neuron):
         neuron.current_voltage = neuron.c

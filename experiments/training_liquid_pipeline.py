@@ -25,7 +25,7 @@ sys.path.insert(0, __file__.rsplit("/", 1)[0])
 from pipeline_setup import output_path, parse_toml
 from lsm_setup import generate_liquid_weights
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 DEFAULTS = dict(
     filename="training_liquid_output.json",

@@ -16,7 +16,7 @@ def main():
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
     import jax
     jax.config.update("jax_platforms", "cpu")
-    from spiking_neural_networks_tpu.parallel.multihost import (
+    from spiking_neural_networks_jax.parallel.multihost import (
         initialize, make_hybrid_mesh)
     initialize(coordinator_address=f"127.0.0.1:{port}",
                num_processes=nproc, process_id=proc_id)
@@ -27,7 +27,7 @@ def main():
 
     import numpy as np
     import jax.numpy as jnp
-    import spiking_neural_networks_tpu as snn
+    import spiking_neural_networks_jax as snn
     from jax.experimental import multihost_utils
 
     def build():

@@ -1,7 +1,7 @@
 """Independent scalar (object-per-neuron) reference implementation.
 
 Pure-NumPy float32 re-implementation of the reference Rust semantics
-(equations cited per class), used as the golden model for the vectorized TPU
+(equations cited per class), used as the golden model for the vectorized JAX
 framework.  Deliberately written object-per-neuron like the Rust crate so it
 shares no code with the framework under test.
 """
@@ -819,3 +819,17 @@ def run_ref_lattice_bcm(neurons, weights, iterations, p):
         clock += 1
         history.append([nr.v for nr in neurons])
     return np.asarray(history, f32), weights
+
+
+def run_ref_discrete_hopfield(weights, state, sweeps):
+    """Sequential sign updates of a bipolar discrete-neuron lattice in
+    row-major order (`DiscreteNeuronLattice::iterate`,
+    attractors/mod.rs:443-461; `DiscreteNeuron::update` :280-285): node i
+    becomes +1 when sum_j w[j][i] * s_j > 0, else -1, and later nodes see
+    the updated value."""
+    w = np.asarray(weights, np.float64)
+    s = np.asarray(state, np.float64).copy()
+    for _ in range(sweeps):
+        for i in range(s.shape[0]):
+            s[i] = 1.0 if float(s @ w[:, i]) > 0.0 else -1.0
+    return s.astype(f32)

@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from spiking_neural_networks_tpu.analysis import eeg, correlation
-from spiking_neural_networks_tpu import attractors
-from spiking_neural_networks_tpu.fitting import (
+from spiking_neural_networks_jax.analysis import eeg, correlation
+from spiking_neural_networks_jax import attractors
+from spiking_neural_networks_jax.fitting import (
     GeneticAlgorithmParameters, genetic_algo, decode_population)
 
 
@@ -109,8 +109,8 @@ def test_genetic_algo_minimizes_quadratic():
 def test_checkpoint_roundtrip():
     """Lattice checkpoint/resume is lossless (new capability vs reference)."""
     import tempfile, os
-    import spiking_neural_networks_tpu as snn
-    from spiking_neural_networks_tpu.utils import checkpoint as ckpt
+    import spiking_neural_networks_jax as snn
+    from spiking_neural_networks_jax.utils import checkpoint as ckpt
 
     lat = snn.Lattice(snn.Izhikevich())
     lat.populate(4, 4, gap_conductance=10.0)
@@ -134,8 +134,8 @@ def test_fit_neuron_to_neuron_recovers_parameter():
     """End-to-end GA fitting (fitting/mod.rs:411+ scenario): recover the
     Izhikevich `a` parameter of a reference neuron from its spike summary."""
     import jax
-    import spiking_neural_networks_tpu as snn
-    from spiking_neural_networks_tpu.fitting import (
+    import spiking_neural_networks_jax as snn
+    from spiking_neural_networks_jax.fitting import (
         FittingSettings, fit_neuron_to_neuron, get_reference_summary,
         GeneticAlgorithmParameters)
 
@@ -174,8 +174,8 @@ def test_fit_neuron_to_neuron_recovers_parameter():
 def test_coupled_neuron_utilities():
     """`iterate_coupled_spiking_neurons(_and_spike_train)` equivalents."""
     import jax.numpy as jnp
-    import spiking_neural_networks_tpu as snn
-    from spiking_neural_networks_tpu import coupling
+    import spiking_neural_networks_jax as snn
+    from spiking_neural_networks_jax import coupling
 
     model = snn.Izhikevich()
     pre = model.init_state(1, gap_conductance=10.0)
@@ -201,8 +201,8 @@ def test_coupled_neuron_utilities():
 
 
 def test_step_timer():
-    from spiking_neural_networks_tpu.utils.profiling import StepTimer
-    import spiking_neural_networks_tpu as snn
+    from spiking_neural_networks_jax.utils.profiling import StepTimer
+    import spiking_neural_networks_jax as snn
     lat = snn.Lattice(snn.Izhikevich())
     lat.populate(4, 4, gap_conductance=10.0)
     lat.connect_stencil(radius=1.5)
@@ -215,8 +215,8 @@ def test_network_checkpoint_roundtrip():
     reproduces the exact trajectory of the uninterrupted run (and the
     structured-plan cache correctly invalidates on load)."""
     import tempfile, os
-    import spiking_neural_networks_tpu as snn
-    from spiking_neural_networks_tpu.utils import checkpoint as ckpt
+    import spiking_neural_networks_jax as snn
+    from spiking_neural_networks_jax.utils import checkpoint as ckpt
 
     def build():
         exc = snn.Lattice(snn.Izhikevich(), id=0)
@@ -252,8 +252,8 @@ def test_reward_lattice_checkpoint_roundtrip():
     """R-STDP lattice checkpoints carry trace state + dopamine; resume is
     exact."""
     import tempfile, os
-    import spiking_neural_networks_tpu as snn
-    from spiking_neural_networks_tpu.utils import checkpoint as ckpt
+    import spiking_neural_networks_jax as snn
+    from spiking_neural_networks_jax.utils import checkpoint as ckpt
 
     def build():
         lat = snn.RewardModulatedLattice(snn.Izhikevich())
@@ -286,8 +286,8 @@ def test_fit_neuron_to_neuron_cross_family():
     adaptive-LIF target's spiking summaries across two drive rates and
     assert the fitted scaled-summary distance beats tolerance."""
     import jax
-    import spiking_neural_networks_tpu as snn
-    from spiking_neural_networks_tpu.fitting import (
+    import spiking_neural_networks_jax as snn
+    from spiking_neural_networks_jax.fitting import (
         FittingSettings, fit_neuron_to_neuron, get_reference_summary,
         GeneticAlgorithmParameters, scale_summary, compare_summary)
 

@@ -6,8 +6,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.dsl import neuron_builder
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.dsl import neuron_builder
 
 IZHIKEVICH_NB = """
 [neuron]
@@ -568,7 +568,7 @@ def test_dsl_neural_refractoriness_matches_delta_dirac():
     [neural_refractoriness] block spelling out the Gaussian-decay effect
     must match the built-in DeltaDiracRefractoriness for random decay /
     times / amplitudes."""
-    from spiking_neural_networks_tpu.models.spike_train import REFRACTORINESS
+    from spiking_neural_networks_jax.models.spike_train import REFRACTORINESS
 
     neuron_builder("""
 [neural_refractoriness]

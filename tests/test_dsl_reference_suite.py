@@ -12,7 +12,7 @@ Each test transcribes one of `/root/reference/build_test/nb_macro/tests/`:
   neurotransmitter receptor sets (ionotropic, metabotropic, multi-slot).
 * ionotropic_channels.rs + ionotropic_channels_testing.rs — AMPA/NMDA/Mg/
   GABA monotonicity sweeps, batched into one state (the sweeps are the
-  neuron axis — the TPU-native form of the reference's per-config loops).
+  neuron axis — the vectorized form of the reference's per-config loops).
 * kinetics_default_impl.rs — `kinetics:` spec binds the generated default.
 * izhikevich_attractor.rs — DSL Izhikevich recalling Hopfield patterns in
   a lattice / an exc+inh network.
@@ -23,13 +23,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.core.history import SpikeHistory
-from spiking_neural_networks_tpu.dsl import neuron_builder
-from spiking_neural_networks_tpu.attractors import (
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.core.history import SpikeHistory
+from spiking_neural_networks_jax.dsl import neuron_builder
+from spiking_neural_networks_jax.attractors import (
     distort_pattern, generate_binary_hopfield_network,
     generate_hopfield_network, generate_random_patterns)
-from spiking_neural_networks_tpu.ops.graph import DenseGraph
+from spiking_neural_networks_jax.ops.graph import DenseGraph
 
 
 def _scan_spikes(model, s, i, t_in=None, valid=None, steps=1000):

@@ -11,7 +11,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 
 def _build(seed, structured):

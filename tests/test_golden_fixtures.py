@@ -14,7 +14,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 from golden_derivation import izhikevich_trace, lif_trace, hh_trace
 
 # (input, step_index (1-based), expected (v, w)) from golden_derivation.py

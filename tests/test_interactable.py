@@ -1,12 +1,13 @@
 """Agent/Environment protocol: host loop (reference semantics) and the
-fused on-device JitEnvironment must produce the same trajectory."""
+on-device JitEnvironment must produce the same trajectory."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.interactable import (Environment,
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.interactable import (Environment,
                                                       JitEnvironment)
 
 TARGET = 0.10
@@ -105,7 +106,7 @@ def test_jit_environment_repeat_and_clock():
 def test_jit_environment_unsupervised_matches_host():
     """`JitEnvironment.run` (unsupervised, plain-Lattice agent) vs the
     host-loop `UnsupervisedEnvironment` (interactable/mod.rs:48-59)."""
-    from spiking_neural_networks_tpu.interactable import (
+    from spiking_neural_networks_jax.interactable import (
         UnsupervisedEnvironment)
 
     def plain_agent():
@@ -155,8 +156,8 @@ def test_jit_environment_grid_history():
     the host-loop trajectory."""
     import numpy as np
     import jax.numpy as jnp
-    import spiking_neural_networks_tpu as snn
-    from spiking_neural_networks_tpu.interactable import JitEnvironment
+    import spiking_neural_networks_jax as snn
+    from spiking_neural_networks_jax.interactable import JitEnvironment
 
     def build():
         lat = snn.RewardModulatedLattice(snn.Izhikevich())
@@ -189,7 +190,7 @@ def test_jit_environment_grid_history():
                                   np.asarray(lat_b.state["v"]))
 
     # EEG history kind works through the same path
-    from spiking_neural_networks_tpu.core.history import EEGHistory
+    from spiking_neural_networks_jax.core.history import EEGHistory
     lat_c, env_c = build()
     lat_c.grid_history = EEGHistory()
     env_c.run_with_reward(30)
@@ -199,8 +200,8 @@ def test_jit_environment_grid_history():
 def test_jit_environment_unsupervised_grid_history():
     import numpy as np
     import jax.numpy as jnp
-    import spiking_neural_networks_tpu as snn
-    from spiking_neural_networks_tpu.interactable import JitEnvironment
+    import spiking_neural_networks_jax as snn
+    from spiking_neural_networks_jax.interactable import JitEnvironment
 
     lat = snn.Lattice(snn.Izhikevich())
     lat.populate(4, 4, gap_conductance=10.0)
@@ -214,56 +215,9 @@ def test_jit_environment_unsupervised_grid_history():
     assert len(lat.grid_history.history) == 40
 
 
-def test_jit_environment_fused_agent_step():
-    """use_pallas=True routes the agent update through the chunk=1 fused
-    kernel; the whole closed-loop trajectory (rewards, weights, traces,
-    env state) must match the XLA step."""
-    def run(use_pallas):
-        agent = _agent()
-        agent.use_pallas = use_pallas
-
-        def reward_fn(env, s):
-            return jnp.float32(TARGET) - env["rate"]
-
-        def update_fn(env, s):
-            spiking = s["is_spiking"].astype(jnp.float32).mean()
-            return {"rate": jnp.float32(0.9) * env["rate"]
-                    + jnp.float32(0.1) * spiking}
-
-        def encoder_fn(env, s):
-            return {**s, "v": s["v"].at[:6].set(40.0)}
-
-        env = JitEnvironment(agent, {"rate": jnp.float32(0.0)},
-                             encoder_fn, reward_fn, update_fn)
-        rewards = env.run_with_reward(75)
-        return agent, env, rewards
-
-    a, env_a, rew_a = run(False)
-    b, env_b, rew_b = run(True)
-    assert env_b.last_build_fused and not env_a.last_build_fused
-    np.testing.assert_allclose(rew_b, rew_a, rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(b.state["v"]),
-                               np.asarray(a.state["v"]),
-                               rtol=1e-5, atol=1e-4)
-    np.testing.assert_array_equal(
-        np.asarray(b.state["last_firing_time"]),
-        np.asarray(a.state["last_firing_time"]))
-    np.testing.assert_allclose(np.asarray(b.graph.weights),
-                               np.asarray(a.graph.weights),
-                               rtol=1e-5, atol=1e-5)
-    for k in ("c", "dw"):
-        np.testing.assert_allclose(np.asarray(b.trace[k]),
-                                   np.asarray(a.trace[k]),
-                                   rtol=1e-5, atol=1e-5, err_msg=k)
-    np.testing.assert_allclose(float(env_b.state["rate"]),
-                               float(env_a.state["rate"]),
-                               rtol=1e-5, atol=1e-6)
-    assert abs(a.dopamine - b.dopamine) <= 1e-4 * max(1.0, abs(a.dopamine))
-
-
 def _poly_callbacks(cue=6, target=TARGET):
-    """Shape-polymorphic callbacks: trace identically on flat (N,) state
-    fields (XLA scan) and (R, C) planes (in-kernel env fusion)."""
+    """Closed-loop callbacks on the flat (N,) state: a reward tracking the
+    mean spike rate and an encoder clamping the first ``cue`` neurons."""
     def reward_fn(env, s):
         return jnp.float32(target) - env["rate"]
 
@@ -273,156 +227,132 @@ def _poly_callbacks(cue=6, target=TARGET):
                 + jnp.float32(0.1) * spiking}
 
     def encoder_fn(env, s):
-        v = s["v"]
-        if v.ndim == 1:
-            fi = jax.lax.iota(jnp.int32, v.shape[0])
-        else:
-            r = jax.lax.broadcasted_iota(jnp.int32, v.shape, 0)
-            c = jax.lax.broadcasted_iota(jnp.int32, v.shape, 1)
-            fi = r * v.shape[1] + c
-        return {**s, "v": jnp.where(fi < cue, jnp.float32(40.0), v)}
+        fi = jax.lax.iota(jnp.int32, s["v"].shape[0])
+        return {**s, "v": jnp.where(fi < cue, jnp.float32(40.0), s["v"])}
 
     return encoder_fn, reward_fn, update_fn
 
 
-def test_jit_environment_env_fused_whole_loop():
-    """Shape-polymorphic callbacks engage the whole-loop in-kernel env
-    fusion (env scalars + callbacks inside K-step kernel launches); the
-    trajectory must match the XLA per-step scan, including across launch
-    boundaries (11 steps = 2 full CPU launches + remainder)."""
-    steps = 11
+class _RateState:
+    """Host-loop environment state mirroring `_poly_callbacks`."""
 
-    def run(use_pallas):
-        agent = _agent()
-        agent.use_pallas = use_pallas
-        enc, rew, upd = _poly_callbacks()
-        env = JitEnvironment(agent, {"rate": jnp.float32(0.0)},
-                             enc, rew, upd)
-        rewards = env.run_with_reward(steps)
-        return agent, env, rewards
+    def __init__(self):
+        self.rate = np.float32(0.0)
 
-    a, env_a, rew_a = run(False)
-    assert not env_a.last_build_env_fused
-    b, env_b, rew_b = run(True)
-    assert env_b.last_build_env_fused and env_b.last_build_fused
-    np.testing.assert_allclose(rew_b, rew_a, rtol=1e-6, atol=1e-6)
-    np.testing.assert_allclose(np.asarray(b.state["v"]),
-                               np.asarray(a.state["v"]),
-                               rtol=1e-5, atol=1e-4)
+    def update_state(self, agent):
+        spiking = np.float32(np.asarray(
+            agent.state["is_spiking"], np.float32).mean())
+        self.rate = np.float32(0.9) * self.rate + np.float32(0.1) * spiking
+
+
+def _lif_agent():
+    lat = snn.RewardModulatedLattice(snn.LeakyIntegrateAndFire())
+    lat.populate(8, 8, gap_conductance=10.0)
+    lat.connect_stencil(radius=1.5, keep_prob=0.9, seed=2)
+    v0 = np.random.default_rng(0).uniform(-60.0, -20.0, 64)
+    lat.apply(lambda s: {**s, "v": jnp.asarray(v0, jnp.float32)})
+    return lat
+
+
+@pytest.mark.parametrize("make_agent,steps,cue", [
+    (_agent, 75, 6), (_agent, 11, 6), (_lif_agent, 30, 6)],
+    ids=["izhikevich-75", "izhikevich-11", "lif-30"])
+def test_jit_environment_reward_loop_matches_host(make_agent, steps, cue):
+    """The on-device closed loop (one scan per episode) against the host
+    `Environment` loop, which steps the agent one `update_and_apply_reward`
+    at a time: rewards, state, weights, traces and env state agree."""
+    enc, rew, upd = _poly_callbacks(cue=cue)
+    host = make_agent()
+    host_state = _RateState()
+
+    def host_encoder(state, agent):
+        agent.state = dict(enc(None, agent.state))
+
+    rewards_host = []
+
+    def host_reward(state, agent):
+        r = float(np.float32(TARGET) - state.rate)
+        rewards_host.append(r)
+        return r
+
+    Environment(host, host_state, host_encoder,
+                host_reward).run_with_reward(steps)
+
+    agent = make_agent()
+    env = JitEnvironment(agent, {"rate": jnp.float32(0.0)}, enc, rew, upd)
+    rewards = env.run_with_reward(steps)
+
+    np.testing.assert_allclose(rewards, rewards_host, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(agent.state["v"]),
+                               np.asarray(host.state["v"]),
+                               rtol=2e-5, atol=2e-4)
     np.testing.assert_array_equal(
-        np.asarray(b.state["last_firing_time"]),
-        np.asarray(a.state["last_firing_time"]))
-    np.testing.assert_array_equal(np.asarray(b.state["is_spiking"]),
-                                  np.asarray(a.state["is_spiking"]))
-    np.testing.assert_allclose(np.asarray(b.graph.weights),
-                               np.asarray(a.graph.weights),
-                               rtol=1e-5, atol=1e-5)
-    for k in ("c", "dw", "counter"):
-        np.testing.assert_allclose(np.asarray(b.trace[k]),
-                                   np.asarray(a.trace[k]),
-                                   rtol=1e-5, atol=1e-5, err_msg=k)
-    np.testing.assert_allclose(float(env_b.state["rate"]),
-                               float(env_a.state["rate"]),
-                               rtol=1e-5, atol=1e-6)
-    assert abs(a.dopamine - b.dopamine) <= 1e-4 * max(1.0, abs(a.dopamine))
-    assert b.internal_clock == steps
+        np.asarray(agent.state["last_firing_time"]),
+        np.asarray(host.state["last_firing_time"]))
+    np.testing.assert_allclose(np.asarray(agent.graph.weights),
+                               np.asarray(host.graph.weights),
+                               rtol=2e-4, atol=2e-4)
+    for k in ("c", "dw"):
+        np.testing.assert_allclose(np.asarray(agent.trace[k]),
+                                   np.asarray(host.trace[k]),
+                                   rtol=2e-4, atol=2e-4, err_msg=k)
+    np.testing.assert_allclose(float(env.state["rate"]), host_state.rate,
+                               rtol=1e-4, atol=1e-6)
+    assert agent.internal_clock == steps
     # non-vacuous: the cue made the lattice spike
-    assert (np.asarray(b.state["last_firing_time"]) >= 0).any()
+    assert (np.asarray(agent.state["last_firing_time"]) >= 0).any()
 
 
-def test_jit_environment_env_fused_gate_rejects():
-    """The flat/(R, C) equivalence gate must reject callbacks whose flat
-    indexing changes meaning on planes (``.at[:6]`` sets 6 rows on an
-    (8, 8) grid) and callbacks reading keys outside the in-kernel view —
-    both fall back to the per-step fused path, not silently diverge."""
-    def run(encoder, reward=None):
-        agent = _agent()
-        agent.use_pallas = True
-        _, rew, upd = _poly_callbacks()
-        env = JitEnvironment(agent, {"rate": jnp.float32(0.0)},
-                             encoder, reward or rew, upd)
-        env.run_with_reward(3)
-        return env
+def test_jit_environment_unsupervised_stdp_matches_host():
+    """Unsupervised `JitEnvironment.run` on a plain STDP lattice against
+    the host `UnsupervisedEnvironment` loop."""
+    from spiking_neural_networks_jax.interactable import (
+        UnsupervisedEnvironment)
 
-    enc_flat = lambda e, s: {**s, "v": s["v"].at[:6].set(40.0)}
-    env = run(enc_flat)
-    assert env.last_build_fused and not env.last_build_env_fused
-
-    enc_poly, _, _ = _poly_callbacks()
-    env = run(enc_poly, reward=lambda e, s: s["nt$t"].sum() * 0.0 + 0.1)
-    assert not env.last_build_env_fused
-
-
-def test_jit_environment_unsupervised_env_fused():
-    """Whole-loop fusion of the unsupervised run() (plain STDP lattice,
-    no reward/dopamine): shape-polymorphic callbacks engage the in-kernel
-    env form; trajectory matches the XLA per-step scan."""
-    def run(use_pallas):
+    def make():
         lat = snn.Lattice(snn.Izhikevich())
         lat.populate(8, 8, gap_conductance=10.0)
         lat.connect_stencil(radius=1.5, keep_prob=0.9, seed=4)
         lat.do_plasticity = True
         v0 = np.random.default_rng(1).uniform(-65.0, 30.0, 64) \
             .astype(np.float32)
-        v0[:5] = 40.0
         lft = np.full(64, -1, np.int32)
         lft[::2] = 3
         lat.apply(lambda s: {**s, "v": jnp.asarray(v0),
                              "last_firing_time": jnp.asarray(lft)})
-        lat.use_pallas = use_pallas
-        enc, _, upd = _poly_callbacks(cue=5)
-        env = JitEnvironment(lat, {"rate": jnp.float32(0.0)},
-                             enc, None, upd)
-        env.run(11)
-        return lat, env
+        return lat
 
-    a, env_a = run(False)
-    assert not env_a.last_build_env_fused
-    b, env_b = run(True)
-    assert env_b.last_build_env_fused
-    np.testing.assert_allclose(np.asarray(b.state["v"]),
-                               np.asarray(a.state["v"]),
-                               rtol=1e-5, atol=1e-4)
+    enc, _, upd = _poly_callbacks(cue=5)
+    host = make()
+    host_state = _RateState()
+
+    def host_encoder(state, agent):
+        agent.state = dict(enc(None, agent.state))
+
+    UnsupervisedEnvironment(host, host_state, host_encoder).run(11)
+    lat = make()
+    env = JitEnvironment(lat, {"rate": jnp.float32(0.0)}, enc, None, upd)
+    env.run(11)
+    np.testing.assert_allclose(np.asarray(lat.state["v"]),
+                               np.asarray(host.state["v"]),
+                               rtol=2e-5, atol=2e-4)
     np.testing.assert_array_equal(
-        np.asarray(b.state["last_firing_time"]),
-        np.asarray(a.state["last_firing_time"]))
-    np.testing.assert_allclose(np.asarray(b.graph.weights),
-                               np.asarray(a.graph.weights),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(float(env_b.state["rate"]),
-                               float(env_a.state["rate"]),
-                               rtol=1e-5, atol=1e-6)
-    assert b.internal_clock == 11
-    # non-vacuous: the cue made the lattice spike
-    assert (np.asarray(b.state["last_firing_time"]) >= 0).any()
+        np.asarray(lat.state["last_firing_time"]),
+        np.asarray(host.state["last_firing_time"]))
+    np.testing.assert_allclose(np.asarray(lat.graph.weights),
+                               np.asarray(host.graph.weights),
+                               rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(float(env.state["rate"]), host_state.rate,
+                               rtol=1e-4, atol=1e-6)
+    assert lat.internal_clock == 11
 
 
-def test_jit_environment_lif_w_callback_not_env_fused():
-    """A LIF agent has no "w" state: the in-kernel view must not expose
-    the kernel's dummy zero w-plane, so a w-reading callback fails the
-    engagement probe and the loop stays on the per-step tiers (where the
-    read raises the same KeyError it would anywhere else)."""
-    def make(reward_fn):
-        lat = snn.RewardModulatedLattice(snn.LeakyIntegrateAndFire())
-        lat.populate(8, 8, gap_conductance=10.0)
-        lat.connect_stencil(radius=1.5, keep_prob=0.9, seed=2)
-        v0 = np.random.default_rng(0).uniform(-60.0, -20.0, 64)
-        lat.apply(lambda s: {**s, "v": jnp.asarray(v0, jnp.float32)})
-        lat.use_pallas = True
-        enc, rew, upd = _poly_callbacks()
-        return JitEnvironment(lat, {"rate": jnp.float32(0.0)},
-                              enc, reward_fn or rew, upd)
-
-    # sane callbacks: LIF engages the whole-loop fusion
-    env = make(None)
-    env.run_with_reward(3)
-    assert env.last_build_env_fused
-
-    # w-reading reward: the probe rejects env fusion, and the per-step
-    # tier then raises the SAME KeyError the XLA path would — instead of
-    # the kernel silently feeding the callback a dummy zero w-plane
-    import pytest
-    env = make(lambda e, s: s["w"].mean())
+def test_jit_environment_missing_field_raises():
+    """A LIF agent has no "w" state: a callback reading it raises KeyError
+    at trace time rather than reading some substitute plane."""
+    _, _, upd = _poly_callbacks()
+    enc, _, _ = _poly_callbacks()
+    env = JitEnvironment(_lif_agent(), {"rate": jnp.float32(0.0)}, enc,
+                         lambda e, s: s["w"].mean(), upd)
     with pytest.raises(KeyError):
         env.run_with_reward(3)
-    assert not env.last_build_env_fused

@@ -7,8 +7,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.ops.graph import (
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.ops.graph import (
     DenseGraph, dense_to_sparse, StencilGraph, radius_offsets)
 from reference_impl import RefIzhikevich, run_ref_lattice, f32, AMPA, NMDA, GABA
 
@@ -208,90 +208,51 @@ def test_last_firing_time_tracking():
     assert int(lat.state["last_firing_time"][0]) == (lft if lft is not None else -1)
 
 
-def test_pallas_fast_path_matches_xla():
-    """The fused Pallas stencil+Izhikevich kernel reproduces the XLA path."""
-    rows = cols = 16
-    v0 = np.random.default_rng(8).uniform(-65, 30, rows * cols).astype(np.float32)
+def _stencil_ref_case(rows, cols, radius, keep_prob, seed, iters):
+    """A stencil lattice's XLA run next to the scalar reference driven by
+    the same edges as a dense weight list."""
+    v0 = np.random.default_rng(seed).uniform(-65, 30,
+                                             rows * cols).astype(np.float32)
+    lat = snn.Lattice(snn.Izhikevich())
+    lat.populate(rows, cols, gap_conductance=10.0, v=v0)
+    lat.connect_stencil(radius=radius, keep_prob=keep_prob, seed=seed)
+    lat.update_grid_history = True
+    lat.run_lattice(iters)
+    got = np.stack(lat.grid_history.history).reshape(iters, rows * cols)
 
-    def run(use_pallas):
-        lat = snn.Lattice(snn.Izhikevich())
-        lat.populate(rows, cols, gap_conductance=10.0, v=v0)
-        lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=4)
-        lat.use_pallas = use_pallas
-        lat.update_grid_history = True
-        lat.run_lattice(150)
-        return np.stack(lat.grid_history.history), \
-            np.asarray(lat.state["last_firing_time"])
-
-    h_xla, lft_xla = run(False)
-    h_pl, lft_pl = run(True)
-    np.testing.assert_allclose(h_pl, h_xla, rtol=1e-6, atol=1e-5)
-    np.testing.assert_array_equal(lft_pl, lft_xla)
-
-
-def test_pallas_kernel_multiblock_direct():
-    """Direct kernel parity with several row-tile programs (grid > 1)."""
-    from spiking_neural_networks_tpu.ops.pallas_stencil import (
-        fused_izhikevich_stencil_step)
-    rows, cols = 32, 128
-    offsets = radius_offsets(2.0)
-    rng = np.random.default_rng(11)
-    g = StencilGraph.build(rows, cols, offsets, keep_prob=0.7, seed=12)
-    v = jnp.asarray(rng.uniform(-65, 30, (rows, cols)), jnp.float32)
-    w = jnp.full((rows, cols), 30.0, jnp.float32)
-    f = lambda val: jnp.full((rows, cols), val, jnp.float32)
-
-    v_new, w_new, spikes = fused_izhikevich_stencil_step(
-        v, w, g.weights, g.in_deg, f(0.02), f(0.2), f(-55.0), f(8.0),
-        f(30.0), f(10.0), f(1.0), f(100.0), f(0.1), offsets=g.offsets,
-        tile_r=8)
-
-    # XLA reference for one step
-    elec = g.gather_electrical(v.reshape(-1), jnp.ones(rows * cols),
-                               v.reshape(-1), f(10.0).reshape(-1))
-    dv = (0.04 * v ** 2 + 5 * v + 140 - w + elec.reshape(rows, cols)) * (0.1 / 100.0)
-    dw = 0.02 * (0.2 * v - w) * (0.1 / 1.0)
-    v_ref = v + dv
-    w_ref = w + dw
-    spk = v_ref >= 30.0
-    v_ref = jnp.where(spk, -55.0, v_ref)
-    w_ref = jnp.where(spk, w_ref + 8.0, w_ref)
-
-    np.testing.assert_allclose(np.asarray(v_new), np.asarray(v_ref),
-                               rtol=1e-6, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(w_new), np.asarray(w_ref),
-                               rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(spikes) > 0, np.asarray(spk))
+    n = rows * cols
+    g = lat.graph
+    w = np.asarray(g.weights)
+    m = np.asarray(g.mask)
+    mask = np.zeros((n, n), bool)
+    dense = np.zeros((n, n), np.float32)
+    for o, (dr, dc) in enumerate(g.offsets):
+        rr, cc = np.nonzero(m[o])
+        dst = rr * cols + cc
+        src = (rr + dr) * cols + (cc + dc)
+        mask[src, dst] = True
+        dense[src, dst] = w[o, rr, cc]
+    neurons, weights = build_ref(n, mask, dense, v0)
+    want, _ = run_ref_lattice(neurons, weights, iters)
+    return got, want, np.asarray(lat.state["last_firing_time"]), neurons
 
 
-def test_pallas_kernel_lane_split_direct():
-    """cols > 128 exercises the (rows, L, 128) lane-split layout (Mosaic
-    miscompiles dynamic row slices of unblocked refs with >128 lanes)."""
-    from spiking_neural_networks_tpu.ops.pallas_stencil import (
-        fused_izhikevich_stencil_step)
-    rows, cols = 16, 256
-    offsets = radius_offsets(2.0)
-    rng = np.random.default_rng(21)
-    g = StencilGraph.build(rows, cols, offsets, keep_prob=0.7, seed=22)
-    v = jnp.asarray(rng.uniform(-65, 30, (rows, cols)), jnp.float32)
-    w = jnp.full((rows, cols), 30.0, jnp.float32)
-    f = lambda val: jnp.full((rows, cols), val, jnp.float32)
-
-    v_new, w_new, spikes = fused_izhikevich_stencil_step(
-        v, w, g.weights, g.in_deg, f(0.02), f(0.2), f(-55.0), f(8.0),
-        f(30.0), f(10.0), f(1.0), f(100.0), f(0.1), offsets=g.offsets,
-        tile_r=8)
-
-    elec = g.gather_electrical(v.reshape(-1), jnp.ones(rows * cols),
-                               v.reshape(-1), f(10.0).reshape(-1))
-    dv = (0.04 * v ** 2 + 5 * v + 140 - w
-          + elec.reshape(rows, cols)) * (0.1 / 100.0)
-    v_ref = v + dv
-    spk = v_ref >= 30.0
-    v_ref = jnp.where(spk, -55.0, v_ref)
-    np.testing.assert_allclose(np.asarray(v_new), np.asarray(v_ref),
-                               rtol=1e-6, atol=1e-5)
-    np.testing.assert_array_equal(np.asarray(spikes) > 0, np.asarray(spk))
+@pytest.mark.parametrize("rows,cols,radius,keep_prob,seed", [
+    (6, 6, 2.0, 0.8, 4),      # the flagship's stencil at a small size
+    (4, 9, 1.0, 0.9, 11),     # nearest neighbours on a non-square grid
+    (5, 5, 1.5, 1.0, 21),     # diagonal neighbours, every edge kept
+])
+def test_stencil_lattice_matches_scalar_reference(rows, cols, radius,
+                                                  keep_prob, seed):
+    """Electrical Izhikevich over a StencilGraph (the flagship's class) vs
+    the object-per-neuron scalar reference over the same edges."""
+    iters = 200
+    got, want, lft, neurons = _stencil_ref_case(rows, cols, radius,
+                                                keep_prob, seed, iters)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=5e-3)
+    want_lft = [-1 if nr.last_firing_time is None else nr.last_firing_time
+                for nr in neurons]
+    np.testing.assert_array_equal(lft, want_lft)
 
 
 def test_bcm_lattice_matches_scalar_reference():
@@ -389,7 +350,7 @@ def test_hh_lattice_matches_scalar_reference():
 
 
 def test_error_taxonomy():
-    from spiking_neural_networks_tpu import errors
+    from spiking_neural_networks_jax import errors
     lat = snn.Lattice(snn.Izhikevich(), id=0)
     lat.populate(2, 2)
     net = snn.LatticeNetwork()
@@ -428,7 +389,7 @@ def test_lattice_set_dt_golden():
 def test_connect_decomposes_to_stencil():
     """connect() with a radius-style predicate produces a StencilGraph whose
     trajectory matches the dense construction exactly."""
-    from spiking_neural_networks_tpu.ops.graph import connect_dense
+    from spiking_neural_networks_jax.ops.graph import connect_dense
 
     rng = np.random.default_rng(9)
     kept = {}
@@ -496,9 +457,9 @@ def test_per_edge_graph_api_all_backends():
     """Graph trait per-edge access (lookup_weight / edit_weight /
     get_incoming_connections / get_outgoing_connections,
     graph/mod.rs:42-72) on all three device graph backends."""
-    from spiking_neural_networks_tpu.ops.graph import (
+    from spiking_neural_networks_jax.ops.graph import (
         DenseGraph, SparseGraph, StencilGraph, dense_to_sparse)
-    from spiking_neural_networks_tpu.errors import GraphError
+    from spiking_neural_networks_jax.errors import GraphError
 
     rng = np.random.default_rng(3)
     n = 9
@@ -564,36 +525,32 @@ def test_scan_unroll_bit_exact():
     np.testing.assert_array_equal(w1, w4)
 
 
-def test_pallas_multistep_emits_histories():
-    """The multi-step kernel emits per-step v/spike planes so grid, EEG,
-    average and spike histories stay on the fast path (previously any
-    history forced the per-step kernel); readouts must match XLA."""
-    from spiking_neural_networks_tpu.core.history import (
-        EEGHistory, SpikeHistory)
+@pytest.mark.parametrize("kind", ["grid", "eeg", "spikes", "average"])
+def test_history_chunking_is_seamless(kind):
+    """Histories recorded in chunks (history_chunk=16 over 37 steps: two
+    full chunks and a remainder) equal one unchunked run bit for bit."""
+    from spiking_neural_networks_jax.core.history import HISTORY_KINDS
     rows = cols = 16
     v0 = np.random.default_rng(8).uniform(-65, 30,
                                           rows * cols).astype(np.float32)
 
-    def run(use_pallas, hist_cls):
+    def run(chunk):
         lat = snn.Lattice(snn.Izhikevich())
         lat.populate(rows, cols, gap_conductance=10.0, v=v0)
         lat.connect_stencil(radius=2.0, keep_prob=0.8, seed=4)
-        lat.use_pallas = use_pallas
-        lat.grid_history = hist_cls()
+        lat.grid_history = HISTORY_KINDS[kind]()
         lat.update_grid_history = True
-        lat.run_lattice(37)        # 2 x K=16 launches + remainder 5
+        lat.history_chunk = chunk
+        lat.run_lattice(37)
         return lat
 
-    for hist_cls in (EEGHistory, SpikeHistory):
-        a = run(False, hist_cls)
-        b = run(True, hist_cls)
-        ha = np.asarray(a.grid_history.history)
-        hb = np.asarray(b.grid_history.history)
-        assert ha.shape == hb.shape and ha.shape[0] == 37
-        np.testing.assert_allclose(hb, ha, rtol=1e-6, atol=1e-5)
-        np.testing.assert_allclose(np.asarray(b.state["v"]),
-                                   np.asarray(a.state["v"]),
-                                   rtol=1e-6, atol=1e-5)
+    a, b = run(None), run(16)
+    ha = np.asarray(a.grid_history.history)
+    hb = np.asarray(b.grid_history.history)
+    assert ha.shape == hb.shape and ha.shape[0] == 37
+    np.testing.assert_array_equal(hb, ha)
+    np.testing.assert_array_equal(np.asarray(b.state["v"]),
+                                  np.asarray(a.state["v"]))
 
 
 def test_preset_spike_train_lazy_populate():
@@ -607,3 +564,19 @@ def test_preset_spike_train_lazy_populate():
     st.run_lattice(50)
     hist = np.stack(st.grid_history.history)
     assert hist.max() == 30.0  # it fired at least once
+
+
+@pytest.mark.parametrize("make", [
+    lambda: snn.Lattice(snn.Izhikevich()),
+    lambda: snn.LatticeNetwork(),
+    lambda: snn.RewardModulatedLattice(snn.Izhikevich()),
+    lambda: snn.RewardModulatedLatticeNetwork(),
+], ids=["lattice", "network", "reward-lattice", "reward-network"])
+def test_removed_use_pallas_setting_raises(make):
+    """Code that still sets the removed `use_pallas` fails instead of
+    having its choice ignored."""
+    obj = make()
+    with pytest.raises(AttributeError, match="removed"):
+        obj.use_pallas = False
+    with pytest.raises(AttributeError, match="removed"):
+        obj.use_pallas

@@ -5,7 +5,7 @@ interface_gpu/lixirnet/tests/networks.py)."""
 import numpy as np
 import pytest
 
-import spiking_neural_networks_tpu.lixirnet as ln
+import spiking_neural_networks_jax.lixirnet as ln
 
 
 def build_exc_inh_network(num_rows=5, num_cols=5, inh_rows=3, inh_cols=3):
@@ -129,7 +129,7 @@ def test_lixirnet_matches_native_trajectory():
     through both APIs (DopaIzhikevich with no receptors degenerates to
     Izhikevich dynamics)."""
     import jax.numpy as jnp
-    import spiking_neural_networks_tpu as snn
+    import spiking_neural_networks_jax as snn
 
     rng = np.random.default_rng(7)
     v_init = rng.uniform(-65, 30, 16).astype(np.float32)
@@ -606,7 +606,7 @@ def test_network_chemical_various_neurotransmitters():
 
 def test_legacy_hodgkin_huxley_lattice_matches_native():
     import jax.numpy as jnp
-    import spiking_neural_networks_tpu as snn
+    import spiking_neural_networks_jax as snn
 
     rows = cols = 4
     rng = np.random.default_rng(0)
@@ -648,7 +648,7 @@ def test_legacy_hodgkin_huxley_lattice_matches_native():
 
 def test_legacy_lif_lattice_matches_native():
     import jax.numpy as jnp
-    import spiking_neural_networks_tpu as snn
+    import spiking_neural_networks_jax as snn
 
     rows = cols = 4
     rng = np.random.default_rng(1)
@@ -684,7 +684,7 @@ def test_legacy_izhikevich_ionotropic_network_matches_native():
     Approximate AMPA/NMDA neurotransmitters + ligand gates, driven by a
     Poisson cue through chemical synapses — compat vs native."""
     import jax.numpy as jnp
-    import spiking_neural_networks_tpu as snn
+    import spiking_neural_networks_jax as snn
 
     rows = cols = 3
     n = rows * cols
@@ -833,7 +833,7 @@ def test_destexhe_receptor_and_ligand_gates_match_reference_impl():
 
 def test_ion_channel_pyclasses_match_vectorized_library():
     import jax.numpy as jnp
-    from spiking_neural_networks_tpu.models import ion_channels as ic
+    from spiking_neural_networks_jax.models import ion_channels as ic
 
     # host pyclasses with HEAD-backend parameter values vs the vectorized
     # library (models/ion_channels.py mirrors ion_channels/mod.rs:192-317)

@@ -6,7 +6,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 from reference_impl import (
     RefIzhikevich, RefLIF, RefAdaptiveLIF, RefAdExLIF, RefQIF, RefSimpleLIF,
     RefHodgkinHuxley, RefMorrisLecar, AMPA, NMDA, GABA,
@@ -157,7 +157,7 @@ def test_receptor_kinetics_variants():
 def test_dopa_izhikevich_dopamine_modulation():
     """D2 dopamine input scales down AMPA/NMDA gain one step later
     (lixirnet DopaGluGABA semantics, interface_gpu/lixirnet/src/lib.rs:45-66)."""
-    import spiking_neural_networks_tpu as snn
+    import spiking_neural_networks_jax as snn
 
     def run(dopa_conc, s_d2):
         model = snn.DopaIzhikevich()
@@ -190,7 +190,7 @@ def test_run_static_input_with_gaussian_noise():
     """`run_static_input_*` with GaussianParameters noise
     (integrate_and_fire/mod.rs:40-58)."""
     import jax
-    from spiking_neural_networks_tpu.models.base import run_static_input
+    from spiking_neural_networks_jax.models.base import run_static_input
     model = snn.Izhikevich()
     state = model.init_state(3)
     state, volts = run_static_input(model, state, 30.0, 200,

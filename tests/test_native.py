@@ -4,8 +4,8 @@ constructions."""
 import numpy as np
 import pytest
 
-from spiking_neural_networks_tpu import _native
-from spiking_neural_networks_tpu import attractors
+from spiking_neural_networks_jax import _native
+from spiking_neural_networks_jax import attractors
 
 
 def test_native_available():

@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.ops.graph import DenseGraph
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.ops.graph import DenseGraph
 from reference_impl import (
     RefIzhikevich, RefRateSpikeTrain, run_ref_network, f32, AMPA, NMDA)
 import reference_impl as RI
@@ -241,7 +241,7 @@ def test_structured_runner_matches_flat():
 
 def test_padded_block_connection_matches_dense():
     """PaddedBlock (low in-degree gather op) equals DenseBlock op-for-op."""
-    from spiking_neural_networks_tpu.core import structured
+    from spiking_neural_networks_jax.core import structured
 
     rng = np.random.default_rng(31)
     n_pre, n_post, e = 64, 16, 48
@@ -285,7 +285,7 @@ def test_padded_block_connection_matches_dense():
     post_vals = dict(last_firing_time=lft_post, is_spiking=spk_post)
     params = {k: jnp.float32(v) for k, v in snn.STDP().params.items()}
 
-    from spiking_neural_networks_tpu.core.plasticity import STDP as STDPRule
+    from spiking_neural_networks_jax.core.plasticity import STDP as STDPRule
 
     def delta(w_, pre, post):
         return STDPRule.edge_dw(w_, pre, post, params)
@@ -341,8 +341,8 @@ def test_lattice_set_dt_updates_plasticity():
 def test_structured_plan_cache_across_runs():
     """Repeated run_lattices reuse the cached plan + device weights; any
     connect() invalidates it; plastic weights keep flowing through the
-    cache (guards the donated-buffer re-adoption, which is CPU-invisible
-    but fatal on TPU)."""
+    cache (guards the donated-buffer re-adoption, which the CPU backend
+    tolerates but an accelerator rejects)."""
     exc = snn.Lattice(snn.Izhikevich(), id=0)
     exc.populate(4, 4, gap_conductance=10.0)
     exc.connect_stencil(radius=1.5)

@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.parallel import (make_pipeline_mesh,
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.parallel import (make_pipeline_mesh,
                                                   run_pipelined)
-from spiking_neural_networks_tpu.errors import LatticeNetworkError
+from spiking_neural_networks_jax.errors import LatticeNetworkError
 
 
 def _chain(stages=4, rows=8, cols=8, plastic=(), chemical=False, seed=0,
@@ -78,7 +78,7 @@ def test_pipeline_matches_structured_electrical():
 def test_pipeline_ships_lazy_host_states():
     """run_pipelined must ship lazily-populated host states before
     consuming them (the run-entry-point invariant; utils/transfer)."""
-    from spiking_neural_networks_tpu.utils.transfer import state_is_host
+    from spiking_neural_networks_jax.utils.transfer import state_is_host
 
     a = _chain(stages=2, seed=9)
     b = _chain(stages=2, seed=9)
@@ -201,7 +201,7 @@ def test_pipeline_rejects_reward_networks():
 # Reward-modulated (R-STDP) pipelines (VERDICT r2 item 8)
 # ---------------------------------------------------------------------------
 
-from spiking_neural_networks_tpu.parallel import run_pipelined_with_reward
+from spiking_neural_networks_jax.parallel import run_pipelined_with_reward
 
 
 def _reward_chain(stages=4, rows=6, cols=6, seed=0, mixed=False,

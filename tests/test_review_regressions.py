@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
+import spiking_neural_networks_jax as snn
 
 
 def test_sparse_trace_follows_edges_on_edit():
@@ -124,7 +124,7 @@ def test_reward_network_checkpoint_roundtrip(tmp_path):
     """save_network/load_network must carry reward lattices (state +
     traces + dopamine) and reward connections (were silently dropped);
     extensionless paths round-trip too."""
-    from spiking_neural_networks_tpu.utils.checkpoint import (load_network,
+    from spiking_neural_networks_jax.utils.checkpoint import (load_network,
                                                               save_network)
     net = _reward_net()
     plain = net.get_lattice(1)
@@ -163,7 +163,7 @@ def test_chemical_coupled_fitting_summary():
     neurotransmission) run and produce finite summaries; the paired state
     keeps the neurotransmitter type axis LAST (was crossed with the pair
     axis and crashed)."""
-    from spiking_neural_networks_tpu.fitting.fitting import (
+    from spiking_neural_networks_jax.fitting.fitting import (
         get_reference_summary)
     m = snn.Izhikevich()
     s = m.init_state(1)
@@ -191,7 +191,7 @@ def test_empty_reward_connection_runs():
 def test_jit_environment_zero_iterations():
     """run_with_reward(0) must return an empty reward array (the chunk
     loop never runs; np.concatenate([]) crashed)."""
-    from spiking_neural_networks_tpu.interactable import JitEnvironment
+    from spiking_neural_networks_jax.interactable import JitEnvironment
     lat = snn.RewardModulatedLattice(snn.Izhikevich())
     lat.populate(2, 2, gap_conductance=10.0)
     lat.connect_stencil(radius=1.5, seed=0)
@@ -202,75 +202,3 @@ def test_jit_environment_zero_iterations():
     out = env.run_with_reward(0)
     assert out.shape == (0,)
     assert lat.internal_clock == 0
-
-
-def test_pallas_step_kernel_odd_rows():
-    """rows with no divisor that is a multiple of 8 (e.g. 12) crashed the
-    per-step kernel's tile_r search with ZeroDivisionError.  The multi-
-    step kernel (which would otherwise take this config since it learned
-    history emission) is forced off to reach the per-step path."""
-    from spiking_neural_networks_tpu.ops import pallas_stencil
-    rows = cols = 12
-    v0 = np.random.default_rng(2).uniform(-65, 30,
-                                          rows * cols).astype(np.float32)
-
-    orig = pallas_stencil.multistep_vmem_ok
-    pallas_stencil.multistep_vmem_ok = lambda g, *a, **kw: False
-    try:
-        def run(use_pallas):
-            lat = snn.Lattice(snn.Izhikevich())
-            lat.populate(rows, cols, gap_conductance=10.0, v=v0)
-            lat.connect_stencil(radius=1.0, keep_prob=0.9, seed=1)
-            lat.use_pallas = use_pallas
-            lat.update_grid_history = True   # per-step kernel path
-            lat.run_lattice(20)
-            return lat
-
-        a, b = run(False), run(True)
-        np.testing.assert_allclose(np.asarray(b.state["v"]),
-                                   np.asarray(a.state["v"]),
-                                   rtol=1e-6, atol=1e-5)
-    finally:
-        pallas_stencil.multistep_vmem_ok = orig
-
-
-def test_pallas_step_kernel_cols_guard():
-    """cols > 128 that are not a multiple of 128 cannot use the per-step
-    kernel's (rows, L, 128) layout (Mosaic unblocked-ref miscompile);
-    with the multi-step kernel forced off the runner must fall back to
-    XLA, bit-identically."""
-    from spiking_neural_networks_tpu.ops import pallas_stencil
-    rows, cols = 8, 192
-    v0 = np.random.default_rng(3).uniform(-65, 30,
-                                          rows * cols).astype(np.float32)
-
-    orig = pallas_stencil.multistep_vmem_ok
-    pallas_stencil.multistep_vmem_ok = lambda g, *a, **kw: False
-    try:
-        def run(use_pallas):
-            lat = snn.Lattice(snn.Izhikevich())
-            lat.populate(rows, cols, gap_conductance=10.0, v=v0)
-            lat.connect_stencil(radius=1.0, keep_prob=0.9, seed=1)
-            lat.use_pallas = use_pallas
-            lat.update_grid_history = True
-            lat.run_lattice(20)
-            assert not pallas_stencil.step_kernel_ok(lat.graph)
-            return lat
-
-        a, b = run(False), run(True)
-        np.testing.assert_array_equal(np.asarray(b.state["v"]),
-                                      np.asarray(a.state["v"]))
-    finally:
-        pallas_stencil.multistep_vmem_ok = orig
-
-
-def test_multistep_vmem_estimate_covers_temporaries():
-    """multistep_vmem_ok must include the ~2x Mosaic roll/select temporary
-    factor: a 768x768 radius-2 lattice (naive ~73 MB) must NOT select the
-    whole-lattice multi-step kernel (measured real usage ~2x naive)."""
-    from types import SimpleNamespace
-    from spiking_neural_networks_tpu.ops import pallas_stencil
-    fake = SimpleNamespace(weights=np.zeros((25, 1, 1)), shape=(768, 768))
-    assert not pallas_stencil.multistep_vmem_ok(fake)
-    small = SimpleNamespace(weights=np.zeros((9, 1, 1)), shape=(512, 512))
-    assert pallas_stencil.multistep_vmem_ok(small)

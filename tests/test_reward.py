@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.ops.graph import DenseGraph
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.ops.graph import DenseGraph
 from reference_impl import (RefIzhikevich, TraceW, run_ref_rstdp_lattice, f32)
 
 

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import spiking_neural_networks_tpu as snn
-from spiking_neural_networks_tpu.ops.graph import DenseGraph
+import spiking_neural_networks_jax as snn
+from spiking_neural_networks_jax.ops.graph import DenseGraph
 
 
 def make_reward_lattice(seed=0, n_side=3, id=0):

@@ -1,13 +1,12 @@
-"""Tests for the relay-safe transfer layer (utils/transfer.py): packed
-single-state ships, the batched multi-state ship, and the lazy-populate
-flow where lixirnet states stay host-side until run time."""
+"""Tests for the transfer layer (utils/transfer.py): single- and
+multi-state ships, and the lazy-populate flow where lixirnet states stay
+host-side until run time."""
 
 import numpy as np
 import jax
 import pytest
 
-from spiking_neural_networks_tpu.utils import transfer
-from spiking_neural_networks_tpu.utils.transfer import (
+from spiking_neural_networks_jax.utils.transfer import (
     device_put_state, device_put_states, ensure_device_state, ship_states,
     state_is_host)
 
@@ -77,7 +76,7 @@ def test_lazy_lixirnet_populate_matches_eager(monkeypatch):
     """A lixirnet network built lazily (host states, one batched ship at
     run time) must produce bit-identical results to the same network with
     states force-shipped after every populate."""
-    import spiking_neural_networks_tpu.lixirnet as ln
+    import spiking_neural_networks_jax.lixirnet as ln
 
     def build():
         neuron = ln.IzhikevichNeuron()
@@ -132,8 +131,8 @@ def test_lazy_lixirnet_populate_matches_eager(monkeypatch):
 
 def test_lazy_standalone_lattice_run():
     """Core Lattice.run_lattice ships a lazily-populated state itself."""
-    from spiking_neural_networks_tpu.core.lattice import Lattice
-    from spiking_neural_networks_tpu.models.integrate_and_fire import (
+    from spiking_neural_networks_jax.core.lattice import Lattice
+    from spiking_neural_networks_jax.models.integrate_and_fire import (
         Izhikevich)
 
     lat = Lattice(Izhikevich())
@@ -155,27 +154,18 @@ def test_lazy_standalone_lattice_run():
                                   np.asarray(ref.state["v"]))
 
 
-def test_packed_fallback_on_failure(monkeypatch):
-    """device_put_states falls back to per-state ships if the packed
-    multi-state path fails."""
+def test_ship_states_keeps_device_leaves():
+    """`ship_states` moves only host leaves: a leaf already on the device
+    is passed through as the same array object, not copied."""
+    import types
     rng = np.random.default_rng(4)
-    states = [_rand_state(rng, 5, t) for t in range(2)]
-
-    calls = {"n": 0}
-    orig = transfer._device_put_state_packed
-
-    def flaky(state):
-        calls["n"] += 1
-        if any("\x00" in k for k in state):
-            raise RuntimeError("simulated relay failure")
-        return orig(state)
-
-    monkeypatch.setattr(transfer, "_device_put_state_packed", flaky)
-    out = device_put_states(states)
-    assert calls["n"] >= 3  # merged attempt + per-state retries
-    for host, dev in zip(states, out):
-        for k in host:
-            np.testing.assert_array_equal(np.asarray(dev[k]), host[k])
+    st = _rand_state(rng, 5)
+    dev_leaf = jax.device_put(st["f0"])
+    holder = types.SimpleNamespace(state={**st, "f0": dev_leaf})
+    ship_states([holder])
+    assert not state_is_host(holder.state)
+    assert holder.state["f0"] is dev_leaf
+    np.testing.assert_array_equal(np.asarray(holder.state["b0"]), st["b0"])
 
 
 def test_core_populate_is_lazy_with_at_api():
@@ -183,15 +173,15 @@ def test_core_populate_is_lazy_with_at_api():
     the host leaves still expose the JAX `.at[...]` update API via
     HostArray, so apply-callbacks written against device arrays work
     unchanged on an unshipped state."""
-    from spiking_neural_networks_tpu.core.lattice import Lattice
-    from spiking_neural_networks_tpu.core.network import SpikeTrainLattice
-    from spiking_neural_networks_tpu.core.reward import (
+    from spiking_neural_networks_jax.core.lattice import Lattice
+    from spiking_neural_networks_jax.core.network import SpikeTrainLattice
+    from spiking_neural_networks_jax.core.reward import (
         RewardModulatedLattice)
-    from spiking_neural_networks_tpu.models.integrate_and_fire import (
+    from spiking_neural_networks_jax.models.integrate_and_fire import (
         Izhikevich)
-    from spiking_neural_networks_tpu.models.spike_train import (
+    from spiking_neural_networks_jax.models.spike_train import (
         PoissonSpikeTrain)
-    from spiking_neural_networks_tpu.utils.transfer import state_is_host
+    from spiking_neural_networks_jax.utils.transfer import state_is_host
 
     lat = Lattice(Izhikevich())
     lat.populate(3, 3, v=-64.0)
